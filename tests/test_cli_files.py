@@ -1,4 +1,4 @@
-"""End-to-end CLI file-mode semantics (VERDICT r3 weak #5 / item 6).
+"""End-to-end CLI file-mode semantics.
 
 These are exactly the behaviors the reference parses but leaves broken
 (`-k` always keeps, `-f` ignored, `-t` a no-op — reference

@@ -99,10 +99,8 @@ def test_device_bitpack_matches_host(rng):
 
 def test_device_ibwt_matches_host(rng):
     """Device pointer-doubling inverse BWT vs the host chase. The kernel is
-    a documented measured NEGATIVE as a production route (gathers cost
-    143.9 ms/block batched in-graph — tools/probe_ibwt_batched.py,
-    PERFORMANCE.md r4) and the stream routing was removed; this keeps the
-    device formulation itself correct."""
+    not a stream route (decode runs on the host); this keeps the device
+    formulation itself correct."""
     from tpubz.hostref.bwt import bwt_decode_fast, bwt_encode
     from tpubz.kernels.ibwt import bwt_inverse_device
 
@@ -133,3 +131,34 @@ def test_python_decode_path_matches_native(rng, monkeypatch):
     assert sd.decompress(c) == d
     monkeypatch.setattr("tpubz.native.get_lib", lambda: None)
     assert sd.decompress(c) == d
+
+
+def _block_class(kind: str, n: int) -> np.ndarray:
+    """Small stand-ins for chip_smoke.py's three full-width block classes."""
+    rng = np.random.default_rng(7)
+    if kind == "mixed":
+        text = np.frombuffer(b"the quick brown fox jumps over the lazy dog\n" * 40, np.uint8)
+        return np.concatenate((text, rng.integers(0, 256, n, dtype=np.uint8)))[:n]
+    if kind == "periodic":
+        b = np.resize(rng.integers(0, 256, 100, dtype=np.uint8), n)
+        b[n // 2] ^= 0x5A
+        return b
+    return rng.integers(0, 256, n, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "periodic", "random"])
+def test_mtf_ranks_matches_host_oracle(kind):
+    """The jnp dominance MTF (the one device MTF engine) gives the host
+    oracle's rank of every byte, and its used-symbol set."""
+    from tpubz.hostref.mtf_rle2 import mtf_encode
+
+    n = 3000
+    block = _block_class(kind, n)
+    pad = np.zeros(4096, np.uint8)
+    pad[:n] = block
+    ranks, used = jax.jit(mtf_ranks, static_argnames="chunk")(
+        jnp.asarray(pad), jnp.int32(n), chunk=256
+    )
+    h_ranks, h_used = mtf_encode(block)
+    assert np.array_equal(np.asarray(ranks)[:n], h_ranks)
+    assert np.array_equal(np.asarray(used), h_used)

@@ -87,7 +87,7 @@ def test_warm_sharded_stamp(tmp_path, monkeypatch):
     """Pod warm-stamp discipline: probe false on a cold cache, true after
     warm_sharded, false again when the stamp predates a source change
     (tampered hash)."""
-    monkeypatch.setenv("TPUBZ_JAX_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     from tpubz.block.encode import DeviceBlockEncoder
     from tpubz.dist.sharded import (
         _sharded_stamp_path,
@@ -113,10 +113,10 @@ def test_multihost_refuses_cold_pod_compile(monkeypatch, tmp_path, rng):
     TPUBZ_POD_COLD_OK=1 overrides."""
     import tpubz.dist.multihost as mh
 
-    monkeypatch.setenv("TPUBZ_JAX_CACHE", str(tmp_path))  # no stamps here
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))  # no stamps here
     monkeypatch.setattr(mh, "_accel_backend", lambda: True)
     data = bytes(rng.integers(0, 200, 50_000, dtype=np.uint8))
-    with pytest.raises(RuntimeError, match="warm_sharded"):
+    with pytest.raises(RuntimeError, match=r"warm_sharded\(level=1\).*TPUBZ_POD_COLD_OK=1"):
         mh.compress_multihost(data, 1)
     monkeypatch.setenv("TPUBZ_POD_COLD_OK", "1")
     out = mh.compress_multihost(data, 1)  # CPU devices: compiles in seconds

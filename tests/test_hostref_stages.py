@@ -242,7 +242,7 @@ def test_size_never_worse_regression():
 def test_rle1_decode_mirrors_native_semantics(rng):
     """hostref rle1_decode must agree with the native fused decoder's RLE1
     semantics (sequential run counting with reset after each expansion) on
-    arbitrary -- including malformed -- inputs (VERDICT r1 weak #7)."""
+    arbitrary -- including malformed -- inputs."""
 
     def native_semantics(d):
         out = []

@@ -1,4 +1,5 @@
 """Native C++ engine vs the pure-python oracle: bit-identical behavior."""
+import os
 import numpy as np
 import pytest
 
@@ -252,3 +253,28 @@ def test_cpu_engine_streaming_file(rng, tmp_path, sys_bunzip2, monkeypatch):
     F.compress_stream(io.BytesIO(d), buf, 1)
     assert buf.getvalue() == compress_cpu(d, 1)
     assert sys_bunzip2(buf.getvalue()) == d
+
+
+def test_foreign_build_key_is_rebuilt(tmp_path, monkeypatch):
+    """A library built for another host's CPU is never loaded here: its
+    build key differs, so this host compiles its own (the stale files
+    stay untouched and unused)."""
+    import ctypes
+    import shutil
+
+    from tpubz import native
+
+    for s in native._SOURCES:
+        shutil.copy(os.path.join(native._HERE, s), tmp_path)
+    monkeypatch.setattr(native, "_HERE", str(tmp_path))
+    real_cpu = native._host_cpu_id
+    monkeypatch.setattr(native, "_host_cpu_id", lambda: "another host's CPU")
+    foreign = native.lib_path()
+    monkeypatch.setattr(native, "_host_cpu_id", real_cpu)
+    for stale in (foreign, str(tmp_path / "libtpubz_native.so")):
+        with open(stale, "wb") as f:
+            f.write(b"not a library for this host")
+    built = native._build()
+    assert built == native.lib_path() != foreign
+    ctypes.CDLL(built)  # a real library for this host, not the stale bytes
+    assert native._build() == built  # found again, not rebuilt

@@ -16,7 +16,7 @@ from tpubz.stream import rigprofile
 
 @pytest.fixture(autouse=True)
 def fresh_profile(tmp_path, monkeypatch):
-    monkeypatch.setenv("TPUBZ_JAX_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     rigprofile.reset_memo()
     yield
     rigprofile.reset_memo()
@@ -64,7 +64,7 @@ def test_choose_stage_relay_rig_picks_bwt():
 def test_choose_stage_throttled_host_picks_full_chain():
     """Fast link + throttled host (no CPU pool): the host legs are the
     bottleneck, so the route that offloads MTF/RLE2 onto the chip wins —
-    the full device chain (VERDICT r2 next-step #4's done criterion)."""
+    the full device chain."""
     p = {
         "cpu_block_s": 0.8,  # throttled host: a CPU block costs 800ms
         "dev_cadence_s": {"bwt": 0.021, "full": 0.041},

@@ -1,9 +1,9 @@
-"""24 MB hybrid-vs-CPU-only regression guard (VERDICT r2 next-step #8).
+"""24 MB hybrid-vs-CPU-only regression guard.
 
-Round 2 measured the hybrid LOSING to CPU-only at 24 MB (26 vs 38.6 MB/s)
-when a stale AOT stamp demoted the device route and device blocks became
-stream stragglers. The arbitration + straggler guard fixed it; this tool
-pins the property that matters across relay/VM phases: the hybrid must
+The hybrid scheduler can lose to CPU-only when device blocks become
+stream stragglers (for example when a stale AOT stamp demotes the device
+route). The arbitration + straggler guard exist for that; this tool pins
+the property that matters across device and host phases: the hybrid must
 never be a liability. Trials interleave hybrid and CPU-only passes so a
 phase swing mid-run biases both arms equally.
 
@@ -39,8 +39,7 @@ def main():
         type=float,
         default=0.88,
         help="hybrid must reach this fraction of CPU-only throughput "
-        "(phase noise on a bursty-VM rig swings ~10%%; a stragglers "
-        "regression costs 30%%+)",
+        "(headroom for host phase noise)",
     )
     args = ap.parse_args()
 
@@ -50,7 +49,7 @@ def main():
     corpus = build_corpus(args.mb)
     lvl = args.level
 
-    # warm both arms (compiles, pools, relay connection, scheduler EMAs)
+    # warm both arms (compiles, pools, scheduler EMAs)
     compress_cpu(corpus[: 1 << 20], lvl)
     compress(corpus[: 1 << 20], lvl)
 

@@ -4,8 +4,7 @@ Times, per block of the bench corpus (the real-file assembly by
 default): the native transform (BWT+MTF+RLE2), the native block CRC, and
 the single-call native emission (refine + headers + payload + pack) —
 the three legs a CPU-engine optimization must target. Best-of-N per
-block; the VM's phase noise makes medians of single runs misleading
-(PERFORMANCE.md "r5 CPU-engine round").
+block, since host phase noise makes single runs misleading.
 """
 import os
 import sys

@@ -1,12 +1,12 @@
-"""tpubz — TPU-native bzip2-format codec (JAX/XLA/Pallas).
+"""tpubz — an accelerator-native bzip2-format codec (JAX/XLA).
 
 Public API:
   compress(data, level=9)   -> bytes   (device pipeline; host fallback)
   decompress(data)          -> bytes   (block-parallel host decode)
 
-Layer map (tpu-first rebuild of the reference, see SURVEY.md):
+Layer map (data-parallel rebuild of the reference, see SURVEY.md):
   format/   stream constants, CRC-32/BZIP2, symbol maps
-  kernels/  device kernels: suffix sort (BWT), MTF monoid scan, RLE2,
+  kernels/  device kernels in plain JAX: suffix sort (BWT), MTF, RLE2,
             bitpack; all jit/vmap/shard_map-composable on fixed shapes
   hostref/  scalar numpy reference codec, bit-exact vs system bzip2 —
             the oracle for every kernel

@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import sys
 
-LICENSE = """tpubz — a TPU-native bzip2-format codec (JAX/XLA).
+LICENSE = """tpubz — an accelerator-native bzip2-format codec (JAX/XLA).
 Implements the bzip2 stream format of Julian Seward's bzip2.
 This software is provided as-is, without warranty."""
 

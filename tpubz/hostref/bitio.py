@@ -222,10 +222,9 @@ class IncrementalSplicer:
     """splice_byte_chunks, one chunk at a time: the stream assembler folds
     each block into the output buffer AS THE ORDERED DRAIN YIELDS IT (the
     main thread is otherwise waiting on workers there), so the end-of-stream
-    serial splice pass — measured 25-120 ms on 32 MB streams — disappears
-    into the pipeline. Same three-pass shifted-OR per chunk; the buffer
-    doubles on demand since the total bit length is unknown until the last
-    block lands."""
+    serial splice pass disappears into the pipeline. Same three-pass
+    shifted-OR per chunk; the buffer doubles on demand since the total bit
+    length is unknown until the last block lands."""
 
     def __init__(self, cap_hint: int = 1 << 16):
         self._buf = np.zeros(max(cap_hint, 64), np.uint8)

@@ -50,10 +50,7 @@ def decode_block(br: BitReader, level: int) -> tuple[np.ndarray, int]:
     """Decode one block body (caller has consumed the 48-bit magic).
 
     Returns (raw bytes, block_crc_from_stream). The BWT inverse is the host
-    counting-sort chase by measurement: the device pointer-doubling kernel's
-    batched in-graph form costs 143.9 ms/block in gathers alone
-    (tools/probe_ibwt_batched.py, PERFORMANCE.md r4), several times the
-    native chase's entire block decode.
+    counting-sort chase.
     """
     log.debug("block CRC read at bit %d", br.pos)
     blk_crc = br.read(32)

@@ -28,18 +28,28 @@ def zero_run_digits(n: int) -> list[int]:
     return digits
 
 
-def mtf_rle2_encode(block: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """block: uint8 BWT output. Returns (rle2 uint16, freqs uint32[258], used bool[256])."""
+def mtf_encode(block: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """block: uint8 BWT output. Returns (ranks int32[n], used bool[256]):
+    each byte's MTF rank over the block's sorted used-byte alphabet."""
     block = np.asarray(block, dtype=np.uint8)
     used = np.zeros(256, dtype=bool)
     used[np.unique(block)] = True
-    alphabet = list(np.flatnonzero(used))
-    eob = int(used.sum()) + 1
-    mtf = alphabet[:]  # mtf[rank] = byte value
+    mtf = list(np.flatnonzero(used))  # mtf[rank] = byte value
+    ranks = np.empty(block.size, dtype=np.int32)
+    for i, b in enumerate(block.tolist()):
+        r = mtf.index(b)
+        ranks[i] = r
+        if r:
+            mtf.pop(r)
+            mtf.insert(0, b)
+    return ranks, used
+
+
+def rle2_encode_ranks(ranks: np.ndarray, used: np.ndarray) -> np.ndarray:
+    """MTF ranks -> RLE2 symbols (uint16), EOB = num_used+1 appended."""
     out: list[int] = []
     zeros = 0
-    for b in block.tolist():
-        r = mtf.index(b)
+    for r in np.asarray(ranks).tolist():
         if r == 0:
             zeros += 1
             continue
@@ -47,12 +57,16 @@ def mtf_rle2_encode(block: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarr
             out.extend(zero_run_digits(zeros))
             zeros = 0
         out.append(r + 1)
-        mtf.pop(r)
-        mtf.insert(0, b)
     if zeros:
         out.extend(zero_run_digits(zeros))
-    out.append(eob)
-    rle2 = np.asarray(out, dtype=np.uint16)
+    out.append(int(used.sum()) + 1)
+    return np.asarray(out, dtype=np.uint16)
+
+
+def mtf_rle2_encode(block: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """block: uint8 BWT output. Returns (rle2 uint16, freqs uint32[258], used bool[256])."""
+    ranks, used = mtf_encode(block)
+    rle2 = rle2_encode_ranks(ranks, used)
     freqs = np.bincount(rle2, minlength=258).astype(np.uint32)
     return rle2, freqs, used
 

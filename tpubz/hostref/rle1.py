@@ -138,9 +138,7 @@ class Rle1Feed:
     confirmed block boundary (cuts are segment-aligned, so a re-entered
     scan reproduces the full scan's bytes exactly); the consumer iterates
     blocks as they are confirmed, so dispatch starts after the FIRST window
-    (~2 blocks of input) instead of after the whole-input scan — on a 32 MB
-    stream the serial scan head measured 140-350 ms (throttled trial
-    boundaries), 15-25% of the trial wall.
+    (~2 blocks of input) instead of after the whole-input scan.
 
     Attributes:
       out     -- preallocated worst-case RLE1 output buffer; each yielded
@@ -273,7 +271,7 @@ class Rle1Feed:
             rest = self._arr.size - self._in_confirmed
         # assume expansionless data for the unscanned remainder: an
         # OVERestimate on heavy-RLE inputs, converging to exact as the
-        # scan (≫ encode rate) finishes within the stream's first ~100 ms
+        # scan (≫ encode rate) finishes early in the stream
         return nb + max(1, -(-rest // self._budget))
 
 

@@ -1,7 +1,7 @@
 """Device bitstream packer: MSB-first variable-length fields -> uint32 words.
 
 The reference packs bits serially through a 64-bit queue
-(src/bitstream/bitpacker.rs:17-111). TPU formulation: per-field bit offsets
+(src/bitstream/bitpacker.rs:17-111). Data-parallel form: per-field bit offsets
 via exclusive cumsum of field lengths, then each field's contribution lands
 in at most two 32-bit words (field <= 24 bits, in-word offset <= 31), written
 with two scatter-adds (bit ranges are disjoint, so add == or).

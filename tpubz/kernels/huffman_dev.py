@@ -3,31 +3,29 @@
 The reference's Huffman refinement is a per-pass scan: for each 50-symbol
 chunk, sum code lengths under each candidate table, pick the argmin, and
 re-accumulate per-table symbol frequencies (src/huffman_coding/huffman.rs:
-139-174). SURVEY.md §2 row 9 calls the chunk-cost argmin "a perfect TPU
-matmul-shape op" — and it is: with per-chunk histograms hist[nsel, 258]
-built once, every pass is
+139-174). The chunk-cost argmin is a matmul-shaped op (SURVEY.md §2 row
+9): with per-chunk histograms hist[nsel, 258] built once, every pass is
 
     cost  = hist @ lens.T            (nsel, 258) @ (258, 6)   -> argmin
     rfreq = onehot(sel).T @ hist     (6, nsel)   @ (nsel, 258)
 
-two small matmuls on the MXU. Only the six <=258-leaf tree builds per pass
-run on host (native engine), with tiny lens/rfreq arrays crossing the link
+two small matmuls. Only the six <=258-leaf tree builds per pass run on
+host (native engine), with tiny lens/rfreq arrays leaving the device
 instead of the 900k-symbol stream.
 
 Exactness: all matmul operands are small integers (counts <= 50, lengths
-<= 20, one-hot 0/1) that are exactly representable in bf16, and the MXU
-computes exact products with f32 accumulation, so cost/rfreq are bit-exact
-against the native integer engine (cross-checked in tests); `highest`
-precision is requested anyway since these matmuls are far from the
-throughput ceiling. argmin ties resolve to the lowest table index in both
-engines (jnp.argmin picks the first minimum; the native scan uses strict
-`<`).
+<= 20, one-hot 0/1) and every sum stays below 2^24 (a block has < 2^20
+symbols), so f32 products and sums are exact. The matmuls run at
+`precision="highest"`, which keeps a GPU from computing them in TF32 (10
+mantissa bits would round lengths x counts), so cost/rfreq are bit-exact
+against the native integer engine (cross-checked in tests). argmin ties
+resolve to the lowest table index in both engines (jnp.argmin picks the
+first minimum; the native scan uses strict `<`).
 
 Payload packing (reference src/bitstream/bitpacker.rs:17-111) then happens
 on device: per-symbol (code, length) gathers from the 6x258 tables by the
 chunk's selector, packed by the prefix-sum bitpack kernel — so the payload
-crosses the device->host link as packed bits, ~3x smaller than the u8
-symbol stream.
+leaves the device as packed bits, not as the u8 symbol stream.
 """
 from __future__ import annotations
 

@@ -1,23 +1,16 @@
 """Inverse BWT on device: pointer-doubling orbit construction.
 
 The reference's inverse is a serial pointer chase (src/bwt_algorithms/
-bwt_sort.rs:91-130, flagged "cache coherency" TBD at decompress.rs:12). TPU
-formulation: build the next-pointer permutation with a stable counting sort
-(one variadic sort), then materialize the orbit of the key in O(log n)
-doubling steps — positions[k:2k] = jump^k(positions[:k]) — so the serial
-chain becomes log n batched permutation applications.
+bwt_sort.rs:91-130, flagged "cache coherency" TBD at decompress.rs:12).
+Data-parallel form: build the next-pointer permutation with a stable
+counting sort (one variadic sort), then materialize the orbit of the key in
+O(log n) doubling steps — positions[k:2k] = jump^k(positions[:k]) — so the
+serial chain becomes log n batched permutation applications.
 
-STATUS: correctness-tested device formulation, NOT a production route —
-a measured negative (VERDICT r3 item 4, closed r4). The best possible
-in-graph batched form (one launch for 8 blocks, fori_loop doubling, no
-per-step host RTT) costs 143.9 ms/block for the doubling gathers ALONE
-(7.2 ms per [900k] gather row, tools/probe_ibwt_batched.py), several times
-the native 16-way segmented chase's ENTIRE block decode: TPU has no fast
-random gather (a 900k gather costs ~7x a full 900k 2-op sort, r3 bisect),
-and the ibwt is nothing but gathers. Production decode is therefore 100%
-host CPU and the former TPUBZ_DEVICE_IBWT stream routing was removed; this
-module remains as the documented device inverse (SURVEY row 19) and the
-host-driven fallback shape below is what that routing used.
+STATUS: correctness-tested device formulation, NOT a production route:
+decode is host CPU work (stream/decode.py). Whether the gathers this
+inverse is made of beat the native segmented chase on a given device is an
+open measurement.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Move-to-front on device, scan-free.
 
 The reference's MTF is an inherently serial per-byte scan over a 256-entry
-list (src/tools/rle2_mtf.rs:61-138). TPU formulation, built only from the
-primitives this backend executes at full rate (sorts, rolls, cumscans,
-structured scatters, elementwise) — no lax loops, no batched gathers:
+list (src/tools/rle2_mtf.rs:61-138). Data-parallel formulation, built from
+sorts, rolls, cumscans, structured scatters and elementwise compare-reduces
+— no lax loops, no batched gathers:
 
   1. The MTF list at any point is: symbols seen so far ordered by last
      occurrence (most recent first), then unseen symbols in initial
@@ -26,7 +26,9 @@ structured scatters, elementwise) — no lax loops, no batched gathers:
                           moved in front; the rest keep chunk-start order)
      Both cases reduce over one (chunk x chunk) boolean dominance matrix,
      and srank[i] is one (chunk x 256) compare-count against the chunk's
-     key row.
+     key row. Each is written as a broadcast compare feeding a sum, which
+     XLA fuses into one reduction, so the (rows, chunk, chunk) boolean
+     tensor is never stored.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def _prev_next(symk, flat_idx, M):
     return s_key, s_idx, prev_g, next_g
 
 
-def _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk, use_pallas):
+def _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk):
     """Fuse the dominance count (in-chunk) with the chunk-start rank count
     (vs the key row). lprev/lnext/keyi: (rows, chunk); keyrow: (rows, 256)."""
     lfirst = lprev < 0
@@ -66,11 +68,6 @@ def _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk, use_pallas):
     srank = jnp.sum(
         keyrow[:, None, :] < keyi[:, :, None], axis=-1, dtype=jnp.int32
     )
-    if use_pallas:
-        # VMEM-streamed dominance kernel: no HBM-materialized C^2 tensors
-        from .mtf_pallas import dominance_ranks
-
-        return dominance_ranks(lprev, lnext, srank, group=8)
     li = jnp.arange(chunk, dtype=jnp.int32)
     ii = li[None, :, None]  # row: position i
     jj = li[None, None, :]  # col: candidate j
@@ -86,7 +83,7 @@ def _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk, use_pallas):
 
 
 def mtf_ranks(
-    last: jnp.ndarray, n: jnp.ndarray, chunk: int = 256, use_pallas: bool = False
+    last: jnp.ndarray, n: jnp.ndarray, chunk: int = 256
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """last: uint8[N] BWT output (first n valid; N % chunk == 0).
 
@@ -107,15 +104,13 @@ def mtf_ranks(
     # per-(chunk, symbol) last occurrence: flag last-in-chunk entries in the
     # (sym, idx) sorted stream, one structured scatter into (nc, 257).
     # Marked entries hit unique (chunk, symbol) cells by construction (one
-    # last-entry per group), so this is a plain unique-index SET — measured
-    # ~1.5 ms cheaper than scatter-max on the real chip (PERFORMANCE.md r3)
+    # last-entry per group), so this is a plain unique-index SET, not a
+    # scatter-max
     s_cid = s_idx // chunk
     nxt_diff = jnp.concatenate(
         ((s_sym[1:] != s_sym[:-1]) | (s_cid[1:] != s_cid[:-1]), jnp.ones(1, jnp.bool_))
     )
-    # flat 1-D target index: a 2-D-indexed scatter lowers measurably worse
-    # than the same scatter with a precomputed flat index (~6 vs ~4.5 ms
-    # in-graph at this shape)
+    # flat 1-D target index (precomputed) rather than a 2-D-indexed scatter
     tgt = jnp.where(nxt_diff, s_cid * 257 + s_sym, nc * 257)
     last_pos = (
         jnp.full(nc * 257, -1, jnp.int32)
@@ -141,9 +136,7 @@ def mtf_ranks(
     # first-in-chunk positions prev_g IS the last occurrence before the
     # chunk (that's the only place keyi is consumed). First-EVER occurrences
     # key by the symbol's initial rank = #{used t < sym} — computed as a
-    # broadcast-compare count instead of a table gather: a 257-entry gather
-    # over 900k indices measured ~7.8 ms in-graph on the real chip, the
-    # (nc, chunk, 256) compare-reduce ~1 ms (PERFORMANCE.md r3). Pad lanes
+    # fused broadcast-compare count instead of a table gather. Pad lanes
     # (sym == 256) count every used symbol; their value is never consumed.
     irank_pos = jnp.sum(
         used[None, None, :]
@@ -159,13 +152,12 @@ def mtf_ranks(
     lnext = jnp.where(next_g < cstart + chunk, next_g - cstart, chunk).reshape(
         nc, chunk
     )
-    ranks = _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk, use_pallas)
+    ranks = _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk)
     return ranks.reshape(N), used
 
 
 def mtf_ranks_batch(
-    last: jnp.ndarray, n: jnp.ndarray, chunk: int = 256,
-    use_pallas: bool = False,
+    last: jnp.ndarray, n: jnp.ndarray, chunk: int = 256
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Batched MTF over [B, N] blocks as ONE flat problem (no vmap).
 
@@ -173,8 +165,7 @@ def mtf_ranks_batch(
     the single-block op at B-times-larger shapes: one variadic sort over
     B*N, one scatter into (B*nc, 256), and the same (rows, C, C) dominance
     reduction with rows = B*nc instead of nc. The compiled graph therefore
-    has the single-block graph's op count — the vmapped alternative hit
-    pathological compile times on this backend.
+    has the single-block graph's op count, unlike a vmapped one.
 
     Returns (ranks int32[B, N], used bool[B, 256]); pad lanes garbage.
     """
@@ -203,7 +194,7 @@ def mtf_ranks_batch(
     # prev/next same-block by construction (equal symk implies equal block);
     # the initial rank of each position's symbol = #{used t < sym} in its
     # block, computed as a broadcast-compare count (same reformulation as
-    # the single-block path: big gathers are ~7 ms in-graph on TPU)
+    # the single-block path)
     s_key, s_idx, prev_g, next_g = _prev_next(symk, flat_idx, M)
     used_rows = jnp.broadcast_to(used[:, None, :], (B, nc, 256)).reshape(
         B * nc, 256
@@ -258,5 +249,5 @@ def mtf_ranks_batch(
     lnext = jnp.where(next_g < cstart + chunk, next_g - cstart, chunk).reshape(
         B * nc, chunk
     )
-    ranks = _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk, use_pallas)
+    ranks = _ranks_from_parts(lprev, lnext, keyi, keyrow, chunk)
     return ranks.reshape(B, N), used

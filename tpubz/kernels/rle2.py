@@ -13,9 +13,7 @@ so the run's zeros can host all its digits), and a nonzero position carries
 its literal at offset + digit-count. Targets are unique by construction, so
 the scatter is a plain unique-index set. This replaced an inverse-mapping
 formulation (stamp emitter ids, cummax forward-fill, gather payloads):
-measured in-graph on the real chip, 900k gathers cost ~7 ms each and
-scatters ~4.5 ms while scans cost ~1.3 ms — one scatter + three scans beats
-one scatter + one scan + two gathers by ~5 ms/block (PERFORMANCE.md r3).
+one scatter + three scans instead of one scatter + one scan + two gathers.
 """
 from __future__ import annotations
 

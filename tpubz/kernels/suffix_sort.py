@@ -1,41 +1,27 @@
 """Rotation suffix sort (BWT forward) on device: prefix doubling.
 
 The reference's hot kernel is a comparator rotation sort with a SA-IS
-fallback (src/bwt_algorithms/bwt_sort.rs:27-86, sais_fallback.rs). On TPU we
-run prefix doubling: O(log n) rounds of a lexicographic four-key sort
-(`jax.lax.sort` variadic — XLA's native sort is extremely fast on TPU),
-re-ranking by cumsum of adjacent-difference flags. Ranks compose mod n, so
-*rotation* (wraparound) order falls out naturally and the reference's
-Duval-rotation SA-IS workaround (sais_fallback.rs:582-620) is unnecessary.
+fallback (src/bwt_algorithms/bwt_sort.rs:27-86, sais_fallback.rs). Here it
+is prefix doubling: O(log n) rounds of a lexicographic four-key sort
+(`jax.lax.sort` variadic), re-ranking by cumsum of adjacent-difference
+flags. Ranks compose mod n, so *rotation* (wraparound) order falls out
+naturally and the reference's Duval-rotation SA-IS workaround
+(sais_fallback.rs:582-620) is unnecessary.
 
-Performance-critical formulation detail: on TPU, arbitrary 900k gathers and
-scatters measure ~7 ms and ~4.5 ms in-graph while a 2-operand 900k sort is
-~1.1 ms (PERFORMANCE.md r3 marginal probes), so the kernel avoids them
-entirely:
+Formulation: the kernel is built from sorts, rolls and scans only — no
+arbitrary gathers or scatters:
   - the mod-n shifted-rank lookup is two dynamic rolls + a select;
   - the rank write-back to position space is a sort keyed by position
     instead of a scatter;
   - the final last-column extraction is ONE stable 2-operand sort keyed by
     the shifted final rank (last[pos(rotation j+1)] = data[j]) instead of a
     data[sa-1] gather, and the block key is a compare-count — which also
-    drops the suffix-array carry from the loop (one less 900k array copied
-    through every converged round's identity branch).
-The loop body is a fixed-trip `fori_loop` (while_loop has pathological
-per-iteration overhead here) with converged rounds frozen via select, and
-the initial rank packs THREE bytes into one int32 key (cover 3 before the
-first sort instead of 1), which drops ~log2(3) doubling rounds.
-
-Why not a Pallas radix sort (SURVEY §7's "make-or-break kernel",
-reference hot loop src/bwt_algorithms/bwt_sort.rs:27-86)? Measured on the
-real v5e at the 900k shape: one doubling round (two-key variadic
-`lax.sort` + cumsum re-rank + sort-by-position write-back) costs ~4.1 ms;
-replacing the write-back sort with an XLA scatter costs ~65 ms/round even
-OUTSIDE lax loops — TPU has no vectorized scatter, so every radix
-"partition move" formulation (LSD histogram + scatter) degrades to a
-serialized store loop. Applying a permutation without scatter IS a sort,
-which makes XLA's native sort the radix machinery on this hardware; the
-win available is fewer/cheaper rounds (3-byte seed, convergence freeze),
-not a hand-rolled sort kernel.
+    drops the suffix-array carry from the loop.
+The loop body is a fixed-trip `fori_loop` with converged rounds skipped
+via lax.cond, and the initial rank packs THREE bytes into one int32 key
+(cover 3 before the first sort instead of 1), which drops ~log2(3)
+doubling rounds. Whether gathers, scatters and packed radix-pair sorts
+beat this shape on a given device is a measurement, not a given.
 """
 from __future__ import annotations
 
@@ -61,9 +47,7 @@ def bwt_forward(
     checks). Batched callers pass "batch": the round loop becomes a
     lax.while_loop exiting on convergence, which vmap lifts to "run until
     ALL blocks in the batch are done" — the batch pays max(active rounds)
-    instead of the fixed ROUNDS (the r3 sharded path paid all 10 rounds on
-    every block, ~2.5x the per-block path's chip time on median-4-round
-    data; VERDICT r3 item 2). False keeps the fixed-trip fori_loop with
+    instead of the fixed ROUNDS. False keeps the fixed-trip fori_loop with
     where-freeze (bitwise-identical rounds, no early exit).
     """
     N = data.shape[0]
@@ -82,9 +66,8 @@ def bwt_forward(
     def one_round(rank, prev_distinct, k):
         """4-ary doubling: sorting by (r[i], r[i+k], r[i+2k], r[i+3k])
         refines coverage k into 4k, halving the round count vs classic
-        2-ary doubling (10 rounds instead of 19 at 900k). The extra sort
-        operands cost far less than extra rounds: per-round traffic grows
-        ~40% while the round count halves.
+        2-ary doubling (10 rounds instead of 19 at 900k), for three extra
+        sort operands per round.
 
         Convergence is detected IN SORT SPACE, before the write-back:
         distinct = class count of the refined partition, read straight off
@@ -98,8 +81,7 @@ def bwt_forward(
         only ever consumed as a sort key. A distinct==n round DOES write
         back — the final (key, last) extraction below reads rank directly,
         which is what lets the loop drop the suffix-array carry and the
-        900k last-column gather entirely (measured ~7 ms in-graph on the
-        real chip vs ~1 ms for the sort that replaces it)."""
+        900k last-column gather entirely."""
         r2 = jnp.where(valid, shifted(rank, k), PAD_RANK)
         r3 = jnp.where(valid, shifted(rank, 2 * k), PAD_RANK)
         r4 = jnp.where(valid, shifted(rank, 3 * k), PAD_RANK)

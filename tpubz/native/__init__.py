@@ -2,47 +2,104 @@
 
 The reference's runtime is 100% native (Rust); here the device compute path
 is JAX/XLA and the host-side sequential stages (Huffman refinement, RLE1
-scan, block decode) are C++ built on demand with the baked toolchain and
-loaded via ctypes. Every native entry point has a numpy fallback and a test
-asserting bit-identical behavior.
+scan, block decode) are C++ built on demand with the host's g++ for the
+host's own CPU (see build_key) and loaded via ctypes. Every native entry
+point has a numpy fallback and a test asserting bit-identical behavior.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
+log = logging.getLogger("tpubz")
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _LOCK = threading.Lock()
 _LIB = None
+_LIB_PATH: str | None = None
 _LIB_FAILED = False
 
 _SOURCES = ["refine.cpp", "rle1.cpp", "decode.cpp", "pack.cpp", "bwt.cpp", "emit.cpp"]
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+
+
+def _host_cpu_id() -> str:
+    """Identity of the CPU a -march=native build targets: the machine type
+    plus the first processor's vendor, model and feature flags."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # end of the first processor's record
+                k, _, v = line.partition(":")
+                if k.strip() in (
+                    "vendor_id", "cpu family", "model", "model name",
+                    "flags", "CPU implementer", "CPU part", "Features",
+                ):
+                    ident.append(f"{k.strip()}={v.strip()}")
+    except OSError:
+        pass
+    return "\n".join(ident)
+
+
+def build_key() -> str:
+    """Key of the library these sources, flags and this host's CPU build:
+    a library copied from another machine carries another key and is never
+    loaded here."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_host_cpu_id().encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    """Where the library built for this host lives (built or not)."""
+    return os.path.join(_HERE, f"libtpubz_native.{build_key()}.so")
+
+
+def loaded_path() -> str | None:
+    """Path of the library get_lib() loaded, or None."""
+    return _LIB_PATH
 
 
 def _build() -> str | None:
-    so_path = os.path.join(_HERE, "libtpubz_native.so")
-    srcs = [os.path.join(_HERE, s) for s in _SOURCES if os.path.exists(os.path.join(_HERE, s))]
-    stamp = max(os.path.getmtime(s) for s in srcs)
-    if os.path.exists(so_path) and os.path.getmtime(so_path) >= stamp:
+    so_path = lib_path()
+    if os.path.exists(so_path):
         return so_path
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        *srcs, "-o", so_path,
-    ]
+    # build beside the target, then rename: a concurrent process never
+    # loads a half-written library
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    srcs = [os.path.join(_HERE, s) for s in _SOURCES]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        subprocess.run(
+            ["g++", *_FLAGS, *srcs, "-o", tmp],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, so_path)
         return so_path
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
+        log.warning("native build failed: %s", e)
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
         return None
 
 
 def get_lib():
     """Returns the loaded native library, or None if unavailable."""
-    global _LIB, _LIB_FAILED
+    global _LIB, _LIB_PATH, _LIB_FAILED
     if _LIB is not None or _LIB_FAILED:
         return _LIB
     with _LOCK:
@@ -133,7 +190,9 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
             _LIB = lib
-        except Exception:
+            _LIB_PATH = path
+        except (OSError, AttributeError) as e:
+            log.warning("native library %s unusable: %s", path, e)
             _LIB_FAILED = True
         return _LIB
 

@@ -23,9 +23,9 @@
 // block comment above sais_split) — values are the raw input (u8 at the
 // top level, L2-resident per 900k block), types a 1-bit-per-position
 // bitmap; the induce passes issue the two random reads in parallel. A
-// fused (value<<1|type) u16 string (r4) and libsais-style sign-bit entry
-// marking were both measured slower on this machine (PERFORMANCE.md
-// "r5 CPU-engine round" / "r5 negative").
+// fused (value<<1|type) u16 string and libsais-style sign-bit entry
+// marking were both tried and were slower on the host they were measured
+// on.
 //
 // MTF+RLE2: the serial scan with the roll-while-searching list update and
 // bijective base-2 zero runs (semantics of src/tools/rle2_mtf.rs:23-177).

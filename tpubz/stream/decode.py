@@ -14,24 +14,18 @@ import os
 
 import numpy as np
 
-# The decode leg is 100% host CPU BY MEASUREMENT, not omission: the device
-# inverse-BWT exists (tpubz/kernels/ibwt.py, correctness-tested) and its
-# best-case BATCHED in-graph form was measured on the real chip — 20
-# chained [8, 900k] doubling gathers cost 143.9 ms/block (7.2 ms per 900k
-# gather row; tools/probe_ibwt_batched.py), several times the native
-# 16-way segmented chase's ENTIRE block decode. TPU gathers are the wrong
-# primitive for pointer-chasing; the former TPUBZ_DEVICE_IBWT production
-# route was removed on those numbers (PERFORMANCE.md r4).
+# The decode leg is host CPU work. A device inverse BWT exists
+# (tpubz/kernels/ibwt.py, correctness-tested) but is not routed: whether its
+# gathers beat the native segmented chase on a given device is an open
+# measurement.
 from ..format.constants import BLOCK_MAGIC, FOOTER_MAGIC, STREAM_MAGIC
 from ..format.crc import block_crc, stream_crc_fold
 from ..hostref.bitio import BitReader
 from ..hostref.block import decode_block
 
-# phase attribution for the most recent stream decode (bench.py emits this
-# into BENCH_r*.json next to the encode phase profile): which engine decoded,
-# how many blocks, and how many pre-decoded in parallel vs fell to the
-# serial walk — decode swings on this rig are host-CPU-phase-driven and
-# this says so in the artifact
+# phase attribution for the most recent stream decode (bench.py prints this
+# next to the encode phase profile): which engine decoded, how many blocks,
+# and how many pre-decoded in parallel vs fell to the serial walk
 last_decode_stats: dict = {}
 
 
@@ -109,10 +103,9 @@ def _decompress_one(data: bytes) -> tuple[bytes, int]:
     walk_pos = [32]  # shared with the scanner: skip already-walked blocks
     if use_native:
         # The magic scan + pre-decode submission run on a SIDE thread while
-        # the stitch walk below starts decoding immediately: the serial
-        # scan head measured 45-190 ms on 18 MB compressed (10-30% of the
-        # whole decode in throttled phases), and the walk's first 1-2
-        # serial block decodes now ride inside it. Candidates the walk has
+        # the stitch walk below starts decoding immediately: the walk's
+        # first serial block decodes ride inside the scan instead of after
+        # it. Candidates the walk has
         # already passed are not submitted (their pre-decode would be
         # pure waste); dict reads/writes are GIL-atomic.
         #
@@ -234,7 +227,7 @@ def _decompress_one(data: bytes) -> tuple[bytes, int]:
         parallel_candidates=len(futures),
     )
     # join over memoryviews: one output copy instead of two (per-part
-    # tobytes + join measured 2.3x the memoryview join at 32 MB)
+    # tobytes + join)
     return b"".join(memoryview(p) for p in parts), (pos + 7) // 8
 
 

@@ -71,9 +71,9 @@ class _WindowItems:
     persistent block-results pipeline. The previous shape — a fresh
     pipeline per window — paid pool spin-up, engine re-probing, and a full
     pipeline fill+drain at EVERY window boundary plus a serial in-window
-    RLE1 scan, and measured 21 MB/s on a 200 MB file while the in-memory
-    path ran 38-46. Block cuts are prefix-stable (a boundary depends only
-    on bytes to its left), so each window keeps every complete block
+    RLE1 scan, and ran at about half the in-memory path's rate. Block cuts
+    are prefix-stable (a boundary depends only on bytes to its left), so
+    each window keeps every complete block
     except the last, whose raw tail becomes the next window's carry.
     Memory stays bounded: views pin at most the windows holding the
     pipeline's <= WINDOW in-flight blocks."""
@@ -98,9 +98,8 @@ class _WindowItems:
     def __iter__(self):
         # the read+scan of window N+1 runs on a producer thread while the
         # pipeline chews window N's blocks (queue depth 1 = one window of
-        # lookahead, ~2x WINDOW_BYTES extra peak memory): the serial
-        # boundary scan measured 50-200 ms per 32 MB window during which
-        # dispatch stalled
+        # lookahead, ~2x WINDOW_BYTES extra peak memory): dispatch would
+        # otherwise stall for each window's serial boundary scan
         import queue
         import threading
 

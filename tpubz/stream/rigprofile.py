@@ -1,28 +1,28 @@
 """Measured per-rig routing profile.
 
-Round-2 routing encoded one specific rig's measurements as module constants
-(host-refine default because *that relay's* RTT lost, 3x-core worker knee,
-bwt-only stage because *that link* was the bottleneck). This module replaces
-those baked-in numbers with a small persisted profile that the stream
-scheduler TRAINS as it runs and READS at startup:
+Routing constants baked in from one machine's measurements would describe
+only that machine. This module keeps a small persisted profile instead,
+which the stream scheduler TRAINS as it runs and READS at startup:
 
   - cpu_block_s   — EMA of one native CPU-engine block (transform+refine+
                     emit) on this host, per worker thread
   - dev_cadence_s — per-stage ("bwt" / "full") EMA of the device pipeline's
-                    per-block completion cadence (chip + link, pipelined)
+                    per-block completion cadence (device + copies,
+                    pipelined)
   - host_leg_s    — per-stage EMA of the host-side work each device block
                     still costs (bwt: native MTF/RLE2 + refine + emit;
                     full: refine + emit only)
 
-The profile lives next to the AOT warm stamps (TPUBZ_JAX_CACHE) because it
-describes the same rig those stamps describe. Env vars (TPUBZ_DEVICE_STAGE,
-TPUBZ_HYBRID_CPU, ...) remain OVERRIDES; absent an override the scheduler
+The profile lives next to the compile cache and the AOT warm stamps
+(tpubz/cache.py) because it describes the same host those stamps
+describe. Env vars (TPUBZ_DEVICE_STAGE, TPUBZ_HYBRID_CPU, ...) remain
+OVERRIDES; absent an override the scheduler
 derives its choices from the profile via `choose_stage` below.
 
 Reference analogue: the reference hardcodes its dispatch thresholds
 (src/bwt_algorithms/bwt_sort.rs:29,39 — SA-IS complexity < 0.3, parallel
 sort > 40k) because it targets one machine class; a codec that schedules
-across a chip, a link, and a host pool has to measure instead.
+across a device, its copies, and a host pool has to measure instead.
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ _EMA = 0.3  # update weight: recent streams dominate, one outlier doesn't
 
 
 def _path() -> str:
-    cache_dir = os.environ.get("TPUBZ_JAX_CACHE", "/root/.jax_cache")
-    return os.path.join(cache_dir, "tpubz_rig_profile.json")
+    from ..cache import cache_dir
+
+    return os.path.join(cache_dir(), "tpubz_rig_profile.json")
 
 
 def load() -> dict:
@@ -97,7 +98,7 @@ def update(**samples: float | dict) -> None:
 
 
 def reset_memo() -> None:
-    """Drop the in-process memo (tests; a new TPUBZ_JAX_CACHE dir)."""
+    """Drop the in-process memo (tests; a new cache directory)."""
     global _CACHE
     with _LOCK:
         _CACHE = None
@@ -114,11 +115,10 @@ def choose_stage(profile: dict, workers: int, eff_cores: int) -> str | None:
 
         total_r = rate_r + max(0, C - h_r * rate_r) / H     [blocks/s]
 
-    On a relay rig (fast host, contended cores) this picks "bwt" — its
-    host leg displaces only a third of a CPU block per device block while
-    the chip runs 2x faster. On a throttled host the saturation term
-    dominates and "full" wins: it offloads MTF/RLE2 onto the chip, so the
-    scarce cores stretch over 3x the device blocks.
+    Where host cores are plentiful and the bwt-only route's device
+    cadence is the faster one, this picks "bwt". Where cores are scarce
+    the saturation term dominates and "full" wins: it offloads MTF/RLE2
+    onto the device, so the cores stretch over more device blocks.
 
     Returns None when the profile lacks the measurements to decide (caller
     keeps its generic default and the live arbitration trains the profile).
